@@ -1,4 +1,4 @@
-"""Derive the reference-throughput proxy from MEASUREMENT (VERDICT r1 #7).
+"""Derive the reference-throughput proxy from MEASUREMENT.
 
 The reference publishes no absolute throughput, so bench.py's
 ``vs_baseline`` needs a proxy.  Round 1 asserted 1.0e5 sampled-edges/s;
@@ -39,7 +39,7 @@ def dump_graph(path):
     from stochastic_gcn_tpu.data.preprocess import cap_adj_degree
     ds = build_reddit_like()
     # the reference applies --max_degree at load (utils.py:261-263); use the
-    # same cap as the TPU bench so the two pipelines sample the same graph
+    # same cap as bench.py so the two pipelines sample the same graph
     adj = cap_adj_degree(ds.train_adj, PAD_DEG, seed=0)
     adj = adj.astype(np.float32)
     adj.sort_indices()

@@ -10,8 +10,7 @@ first-layer weight gradient, normalized by the full-gradient magnitude).
 Grid: {NS (no PP), NS+PP, IS+PP, CV+PP} without dropout and {NS, NS+PP,
 IS+PP, CV+PP, CVD+PP, DET+PP (det_dropout)} with dropout — the reference's
 VarNS/VarNSPP/VarCV and DVar* rows plus the IS and det_dropout arms the
-harness supports (train.py:241-277 runs any flag combination; VERDICT r3
-item 6).
+harness supports (train.py:241-277 runs any flag combination).
 
 Expected orderings asserted (the paper's Fig. 4 / plot-var content):
 * without dropout, CV's gradient bias ~ 0 at convergence (Theorem 2) and
@@ -21,7 +20,7 @@ Expected orderings asserted (the paper's Fig. 4 / plot-var content):
 * every sampled estimator's bias/stdev is finite and recorded.
 
 Writes GRADVAR_VALIDATION.json at the repo root; exits nonzero on a
-failed ordering.  ~6 min on CPU (default); --platform tpu for the chip.
+failed ordering.  ~6 min on CPU (default); --platform gpu for the GPU.
 """
 import sys, os
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,7 +34,7 @@ from validate_replica import build_cora_replica  # noqa: E402 (same dir)
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default="cpu", choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default="cpu", choices=["cpu", "gpu"])
     ap.add_argument("--times", type=int, default=400,
                     help="resamples per estimator (reference uses 1000; "
                          "400 gives the same orderings in a third of the "
@@ -49,7 +48,7 @@ def main():
                          "SHARDED pred_and_grad (dp-way mesh, node-"
                          "sharded tables, halo transports) — the code "
                          "path where a transport bug would corrupt "
-                         "estimates silently (VERDICT r4 #6)")
+                         "estimates silently")
     ap.add_argument("--owner_batching", action="store_true",
                     help="with --dp: owner-aligned fields + rcm")
     ap.add_argument("--graph_format", default="padded",
@@ -178,7 +177,7 @@ def main():
 
     # ---- ordering assertions (plot-var.py's content) ---------------------
     # each assertion runs only when its arms were measured (--algos can
-    # select a subset, e.g. the dp8 CVPP+CVDPP minimum of VERDICT r4 #6)
+    # select a subset, e.g. the dp8 CVPP+CVDPP minimum)
     failures = []
     nd = results.get("nodrop", {})
     dr = results.get("dropout", {})

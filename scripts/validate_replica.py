@@ -23,8 +23,7 @@ IS+PP, CV+PP, CVD+PP (degree=1).  Pass criteria:
 * Cora-replica Exact val accuracy inside [0.74, 0.86] (band-calibrated).
 
 Writes REPLICA_VALIDATION.json at the repo root and exits nonzero on
-failure.  ~3 min on CPU (default; avoids tying up the TPU), --platform tpu
-to run on the chip.
+failure.  ~3 min on CPU (default), --platform gpu to run on the GPU.
 """
 import sys, os
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -105,14 +104,14 @@ def run_grid(make_cfg, ds, log, seeds=(1,)):
             f"micro_f1={out[name]['test_micro_f1']:.4f}  "
             f"({time.time()-t0:.0f}s, {len(seeds)} seeds)")
     # a lossy CV full term must be visible in the artifact, not just the
-    # flat_csr UserWarning (VERDICT r4 #8); 0.0 on padded graphs
+    # flat_csr UserWarning; 0.0 on padded graphs
     out["truncated_edges_frac"] = trunc_frac
     return out
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default="cpu", choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default="cpu", choices=["cpu", "gpu"])
     ap.add_argument("--tol", type=float, default=0.08)
     ap.add_argument("--cv_tol", type=float, default=0.025)
     ap.add_argument("--tmp", default="/tmp/replica_validation")

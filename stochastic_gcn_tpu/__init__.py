@@ -1,12 +1,11 @@
-"""stochastic_gcn_tpu — TPU-native stochastic GCN training framework.
+"""stochastic_gcn_tpu — stochastic GCN training framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the system described in
-"Stochastic Training of Graph Convolutional Networks with Variance
-Reduction" (Chen, Zhu, Song — ICML 2018), with the capabilities of the
-reference implementation (thu-ml/stochastic_gcn) and a TPU-first
-architecture: device-resident graphs, on-device receptive-field sampling,
-control-variate estimators over HBM-resident history, and pjit/shard_map
-scale-out.
+A from-scratch JAX/XLA re-design of the system described in "Stochastic
+Training of Graph Convolutional Networks with Variance Reduction" (Chen,
+Zhu, Song — ICML 2018), with the capabilities of the reference
+implementation (thu-ml/stochastic_gcn): device-resident graphs, on-device
+receptive-field sampling, control-variate estimators over device-resident
+history, and jit/shard_map scale-out.  It runs on NVIDIA GPUs.
 """
 
 __version__ = "0.1.0"

@@ -28,7 +28,7 @@ def main(argv=None):
                    help="artifact directory (module.shlo + state.npz + "
                         "manifest.json)")
     p.add_argument("--platforms", default="",
-                   help="comma-separated lowering targets, e.g. cpu,tpu "
+                   help="comma-separated lowering targets, e.g. cpu,cuda "
                         "for an artifact that serves on either fleet "
                         "(default: current backend only)")
     p.add_argument("--scan_batches", type=int, default=1,

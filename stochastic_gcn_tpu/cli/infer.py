@@ -52,6 +52,8 @@ def main(argv=None):
     from ..config import parse_flags
     cfg = parse_flags(rest)
     np.random.seed(cfg.seed)
+    from ..utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from ..parallel.distributed import maybe_initialize
     if maybe_initialize(cfg):

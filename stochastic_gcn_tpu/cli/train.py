@@ -22,6 +22,8 @@ from ..training.loop import Trainer
 def main(argv=None):
     cfg = parse_flags(argv)
     np.random.seed(cfg.seed)
+    from ..utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     # multi-controller launch (--coordinator host:port): initialize before
     # any backend use; non-main processes run silently (identical compute,

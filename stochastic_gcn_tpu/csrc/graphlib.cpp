@@ -1,6 +1,6 @@
 // graphlib — native host-side graph runtime for stochastic_gcn_tpu.
 //
-// TPU-native counterpart of the reference's C++ layer:
+// Counterpart of the reference's C++ layer:
 //   * Fenwick-tree multinomial sampler without replacement
 //     (role of gcn/mult.cpp: Mult::Add/Query)
 //   * per-row uniform k-without-replacement sampling with unbiased rescale

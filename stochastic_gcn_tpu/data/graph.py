@@ -1,20 +1,20 @@
 """Device-resident graph containers.
 
 The reference streams sampled sub-adjacencies host->GPU every step via TF1
-feed_dicts (gcn/_scheduler.pyx:137-148).  The TPU-native design instead keeps
-the WHOLE graph resident in HBM in a static-shape padded form so the entire
-training step (sampling included) compiles into one XLA program:
+feed_dicts (gcn/_scheduler.pyx:137-148).  This design instead keeps the
+WHOLE graph resident in device memory in a static-shape padded form so the
+entire training step (sampling included) compiles into one XLA program:
 
 * ``PaddedGraph``: neighbor ids/weights as dense ``[N, Dcap]`` arrays with a
   sentinel id ``N`` for empty slots.  Row order is the CSR order.  This is the
-  TPU analogue of the CSR arrays the reference C++ scheduler walks
+  device analogue of the CSR arrays the reference C++ scheduler walks
   (gcn/scheduler.h:17-27): random per-row access with static shapes, ideal for
   vectorized fanout sampling and for the CV full-neighborhood term.
 * ``DenseRows``: node-indexed dense data (features/labels/history) stored as
   ``[N+1, d]`` with a zero sentinel row so padded gathers are harmless.
 * ``PaddedSparseFeatures``: row-padded (idx, val) form of a sparse feature
   matrix; the first dense layer treats X @ W as an embedding gather-sum, the
-  MXU-friendly equivalent of the reference's sparse_tensor_dense_matmul on
+  static-shape equivalent of the reference's sparse_tensor_dense_matmul on
   sparse inputs (gcn/layers.py:31-37).
 """
 
@@ -188,9 +188,8 @@ class FlatGraph:
     Storage is BLOCK-ALIGNED: every CSR row starts on a ``BLOCK``-element
     boundary of the flat arrays, which are kept as 2-D ``[NB, BLOCK]``
     tables.  A width-W row window is then ``ceil(W / BLOCK)`` whole-block
-    row gathers plus a static slice — measured 3-5x faster on TPU than
-    ``vmap(dynamic_slice)`` over a 1-D array, which lowers to one gather
-    ISSUE per element (W issues/row; PERF.md "Edge-list layout", round 3).
+    row gathers plus a static slice, where ``vmap(dynamic_slice)`` over a
+    1-D array lowers to one gather per element (W per row).
     Alignment costs < (BLOCK-1) pad slots per row (~BLOCK/2 expected).
 
     Attributes:
@@ -239,8 +238,8 @@ class FlatGraph:
     # Static record of the edge fraction the per-row budget drops from the
     # CV full-neighborhood term (0.0 = lossless).  Surfaced as
     # ``truncated_edges_frac`` in bench / replica-validation artifacts so
-    # a lossy full term can never pass silently (VERDICT r4 #8; the
-    # UserWarning alone is easy to miss in driver logs).  Rounded at
+    # a lossy full term can never pass silently (the
+    # UserWarning alone is easy to miss in logs).  Rounded at
     # construction so equal-budget graphs share a treedef.
     truncated_frac: float = dataclasses.field(
         default=0.0, metadata=dict(static=True))
@@ -276,7 +275,7 @@ def flat_csr(adj: sp.csr_matrix, edge_mult: float = 0.0,
     distribution: the smallest BLOCK multiple whose windows cover >=
     ``AUTO_EDGE_COVERAGE`` (99.9%) of all full-term edge slots — so skewed
     graphs get the budget they need instead of a silently lossy default
-    (VERDICT r3 item 4: the fixed 4x default missed the PPI replica band).
+    (the fixed 4x default missed the PPI replica band).
 
     Rows longer than the budget are truncated to their first
     ``edge_cap_per_row`` CSR entries in the CV full-neighborhood term and
@@ -285,7 +284,7 @@ def flat_csr(adj: sp.csr_matrix, edge_mult: float = 0.0,
     gcn/utils.py:532-543); sampling fanout windows are never truncated.
 
     ``parts > 1`` lays the block tables out for node-sharding over that
-    many chips (see :class:`FlatGraph.parts`): per-chip HBM becomes
+    many chips (see :class:`FlatGraph.parts`): per-chip memory becomes
     ~O(E/parts), window block reads are owner-routed through the halo
     fetch transport (parallel/halo.py) when a mesh is passed to
     :func:`flat_row_windows`.
@@ -411,13 +410,12 @@ def flat_row_windows(graph: "FlatGraph", field: jax.Array, width: int,
 
     Rows are block-aligned (see :class:`FlatGraph`), so a window is
     ``ceil(width / BLOCK)`` whole-block row gathers from the ``[NB, B]``
-    tables plus a STATIC ``[:, :width]`` slice — block-row gather issues
+    tables plus a STATIC ``[:, :width]`` slice — block-row gathers
     instead of per-element ones (``vmap(dynamic_slice)`` on a 1-D array
-    lowers to one gather issue per ELEMENT: measured 1.3-1.4 ms for
-    1024 x 293/52 windows vs 0.02-0.3 ms for the block path; PERF.md
-    round 3).  A window may read past its row's blocks into the next
-    row's — those slots are masked by ``deg`` below, and per-partition
-    tail padding keeps every window inside its owner's tile.  Rows longer
+    lowers to one gather per ELEMENT).  A window may read past its row's
+    blocks into the next row's — those slots are masked by ``deg`` below,
+    and per-partition tail padding keeps every window inside its owner's
+    tile.  Rows longer
     than ``width`` are truncated to their first ``width`` CSR entries;
     shorter rows are masked to sentinel/0.
 

@@ -30,7 +30,7 @@ from .graph import Dataset
 from .preprocess import (adj_from_edges, compute_pp_features,
                          data_augmentation, graphsage_normalize_adj,
                          normalize_adj, row_normalize_features,
-                         subsample_edges)
+                         standardize, subsample_edges)
 
 GCN_DATASETS = {"cora", "citeseer", "pubmed", "nell"}
 
@@ -265,10 +265,7 @@ def load_graphsage_data(prefix: str, cfg: Config,
             labels[id_map[k], v] = 1
 
     if normalize:
-        from sklearn.preprocessing import StandardScaler
-        scaler = StandardScaler()
-        scaler.fit(feats[train_data])
-        feats = scaler.transform(feats).astype(np.float32)
+        feats = standardize(feats, train_data)
 
     train_adj = graphsage_normalize_adj(
         adj_from_edges(train_edges, num_data))
@@ -418,7 +415,7 @@ def community_sbm_dataset(num_nodes: int = 65536, num_classes: int = 41,
                           seed: int = 0) -> Dataset:
     """Degree-corrected stochastic block model with power-law degrees —
     the community-structured Reddit stand-in for the estimator
-    time-to-accuracy benchmark (the TPU analogue of the reference's
+    time-to-accuracy benchmark (the stand-in for the reference's
     Reddit protocol, scripts/analyze-time.py:12-14: time to 0.94 val
     accuracy).
 

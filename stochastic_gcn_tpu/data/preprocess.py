@@ -23,6 +23,23 @@ def row_normalize_features(features: sp.spmatrix) -> sp.spmatrix:
     return sp.diags(r_inv, 0).dot(features)
 
 
+def standardize(feats: np.ndarray, rows) -> np.ndarray:
+    """Zero-mean, unit-variance feature columns with the statistics of
+    ``rows`` (the training nodes): scikit-learn's ``StandardScaler``
+    fit-then-transform, which the reference applies to GraphSAGE features.
+    Columns constant over ``rows`` (variance within rounding of zero, by
+    the same bound) are centred only.  Returns float32."""
+    x = np.asarray(feats, np.float64)
+    fit = x[rows]
+    n = fit.shape[0]
+    mean = fit.mean(axis=0)
+    var = fit.var(axis=0)
+    eps = np.finfo(np.float64).eps
+    constant = var <= n * eps * var + (n * mean * eps) ** 2
+    scale = np.where(constant, 1.0, np.sqrt(var))
+    return ((x - mean) / scale).astype(np.float32)
+
+
 def gcn_normalize_adj(adj: sp.spmatrix) -> sp.csr_matrix:
     """Symmetric GCN normalization: D^-1/2 (A + I) D^-1/2.
 

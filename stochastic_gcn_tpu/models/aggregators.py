@@ -8,7 +8,7 @@ static-shape fanout-slot representation produced by the on-device scheduler:
 * full-neighborhood SpMM ``Â_full · h̄`` -> padded-row contraction over the
   device-resident graph, gathering history rows directly by node id (the
   reference's ffield/ifield indirection disappears because history lives in
-  HBM at [N+1, d]).
+  device memory at [N+1, d]).
 
 All math matches §2.4 of SURVEY.md / gcn/layers.py:282-362 term by term.
 """
@@ -28,13 +28,12 @@ from ..parallel.halo import row_gather
 from ..sampler.scheduler import LayerSample
 
 # The two-tier full-neighborhood term engages only at fields this large:
-# its compaction/cond machinery costs ~0.4 ms of serial dispatch latency,
-# which beats the saved gather rows only once the step is gather-WORK
-# bound (TPU A/B, scripts/profile_tiered_ab.py: 1.19x at batch 4096,
-# 0.53x at 512 — same size-dependence as SORTED_SCATTER_MIN_ROWS).
-# Env-overridable so the replica acceptance-band validator can force the
-# tiered path at small-graph field sizes (validate_replica.py
-# --fadj_tier) — a perf gate, never a semantics switch.
+# its compaction/cond machinery adds serial kernel latency, which the
+# saved gather rows repay only once the step is gather-WORK bound (the
+# same size-dependence as SORTED_SCATTER_MIN_ROWS).  Env-overridable so
+# the replica acceptance-band validator can force the tiered path at
+# small-graph field sizes (validate_replica.py --fadj_tier) — a perf
+# gate, never a semantics switch.
 TIER_MIN_ROWS = int(os.environ.get("SGT_TIER_MIN_ROWS", 4096))
 
 
@@ -66,7 +65,8 @@ def full_neighborhood_mean_halo(hist: jax.Array, fnbr: jax.Array,
                                 fw: jax.Array, mesh) -> jax.Array:
     """``Â_full · h̄`` with the history row-sharded along the node axis:
     owner-side contraction, then psum_scatter of the [F, d] partials —
-    Dcap x fewer ICI bytes than all-reducing the [F, Dcap, d] gather."""
+    Dcap x fewer interconnect bytes than all-reducing the [F, Dcap, d]
+    gather."""
     def contract(rows, mine, w_all):
         return jnp.einsum("pfk,pfkd->pfd",
                           jnp.where(mine, w_all, 0.0).astype(jnp.float32),
@@ -86,17 +86,13 @@ def history_gather(hist: jax.Array, ids: jax.Array, mesh=None,
 
 def full_neighborhood_mean(hist: jax.Array, graph: PaddedGraph,
                            field_out: jax.Array, square: bool = False,
-                           use_pallas: bool = False, mesh=None) -> jax.Array:
+                           mesh=None) -> jax.Array:
     """``(Â_full · h̄)[field_out]``: padded full-row contraction.
 
     hist: [N+1, d] device-resident history (zero sentinel row).
     Equivalent to reference ``dot(fadj, gather(hist, ffield))``
     (gcn/layers.py:355).  ``square=True`` uses squared edge weights (the
     det-dropout variance term, gcn/layers.py:338).
-
-    ``use_pallas`` selects the streaming-gather kernel: true-f32
-    accumulation (XLA's default-precision einsum reduces in bf16 passes)
-    at ~3x the op time — see ops/pallas_spmm.py.
 
     On a :class:`FlatGraph` this dispatches to the edge-list enumeration
     path instead (power-law rows without max-degree padding).
@@ -112,11 +108,6 @@ def full_neighborhood_mean(hist: jax.Array, graph: PaddedGraph,
         fw = jnp.square(fw)
     if _halo_tiles(hist, field_out, mesh):
         return full_neighborhood_mean_halo(hist, fnbr, fw, mesh)
-    if use_pallas:
-        from ..ops.pallas_spmm import hbm_gather_aggregate
-        interp = jax.default_backend() == "cpu"
-        return hbm_gather_aggregate(hist.astype(jnp.float32), fnbr,
-                                    fw, interpret=interp)
     if (graph.tier_w > 0 and graph.tier_w <= fnbr.shape[1] - 8
             and fnbr.shape[0] >= TIER_MIN_ROWS):
         return tiered_full_contract(hist, fnbr, fw, fdeg, graph.tier_w,
@@ -130,9 +121,9 @@ def tiered_full_contract(hist: jax.Array, fnbr: jax.Array, fw: jax.Array,
                          frac: float) -> jax.Array:
     """Two-tier exact contraction ``out[f] = sum_k fw[f,k] * hist[fnbr[f,k]]``.
 
-    The history row gather is the CV step's dominant cost and is row-ISSUE
-    bound (PERF.md finding #5), so padding every row window to the graph
-    MAX degree is pure cost when the mean degree is far below it.  Split:
+    The history row gather is the CV step's largest gather, so padding
+    every row window to the graph MAX degree is pure cost when the mean
+    degree is far below it.  Split:
 
     * main pass — the first ``w1`` slots of every row ([F, w1] gather),
       exact for every row with degree <= w1 (CSR packs real edges first);
@@ -184,9 +175,9 @@ def full_neighborhood_mean_edgelist(hist: jax.Array, graph: FlatGraph,
     row windows slice-gathered from the flat CSR arrays — one gather issue
     per row (see data/graph.py::flat_row_windows) with window width set by
     the edge budget (~a few x mean degree) instead of the graph's MAX
-    degree.  On power-law graphs (max >> mean) this cuts both HBM (O(E)
-    storage) and the history-row gather issues, the CV step's dominant
-    cost (PERF.md) — SURVEY.md §7.3 hard part #1.
+    degree.  On power-law graphs (max >> mean) this cuts both device
+    memory (O(E) storage) and the history-row gathers, the CV step's
+    largest — SURVEY.md §7.3 hard part #1.
 
     Rows with degree above the budget keep their first
     ``edge_cap_per_row`` CSR edges, RENORMALIZED to preserve row mass
@@ -230,8 +221,7 @@ def _apply_renorm(fw: jax.Array, graph: FlatGraph, field: jax.Array):
 # cumsum+scatter chain (4 kernels).  Both pick the FIRST big_cap flagged
 # positions (top_k breaks ties by ascending index), so the selected set —
 # including the overflow drop set — is identical; only the kernel count
-# differs.  Env-switchable for the on-chip A/B
-# (scripts/profile_tier_machinery.py).
+# differs.  Env-switchable for an A/B of the two lowerings.
 TIER_POS_IMPL = os.environ.get("SGT_TIER_POS", "topk")
 
 
@@ -345,13 +335,12 @@ def _anchor(history, lazy_l, j: int):
 
 
 def _full_term(history, lazy_l, j: int, graph, field_out, square=False,
-               use_pallas=False, mesh=None):
+               mesh=None):
     """``(A_full · h̄)[field_out]``: the per-step contraction, or one row
     gather of the precomputed a-bar table under --lazy_fullterm."""
     if lazy_l is None:
         return full_neighborhood_mean(history[j], graph, field_out,
-                                      square=square, use_pallas=use_pallas,
-                                      mesh=mesh)
+                                      square=square, mesh=mesh)
     return jnp.take(lazy_l[1][j], field_out, axis=0)
 
 
@@ -398,8 +387,8 @@ def _self_rows(x: jax.Array, ls: LayerSample, mesh=None) -> jax.Array:
 
     Under the owner-aligned layout every id sits in its owner chip's
     positional block of BOTH fields, so the position gather is ~100%
-    self-local — the fetch-routed transport makes it ICI-free, where the
-    GSPMD lowering all-reduces the full [F, d] result."""
+    self-local — the fetch-routed transport keeps it off the interconnect,
+    where the GSPMD lowering all-reduces the full [F, d] result."""
     if ls.self_pos is None:
         return x[:ls.slot_pos.shape[0]]
     return row_gather(x, ls.self_pos, mesh, sentinel=x.shape[0])
@@ -424,8 +413,7 @@ def plain_aggregate(inputs, ls: LayerSample, normalization: str, mesh=None):
 def vr_aggregate(inputs, ls: LayerSample, field_in: jax.Array,
                  field_out: jax.Array, graph: PaddedGraph,
                  history: Tuple[jax.Array, ...], cvd: bool,
-                 normalization: str, use_pallas: bool = False, mesh=None,
-                 lazy_l=None):
+                 normalization: str, mesh=None, lazy_l=None):
     """VRAggregator (gcn/layers.py:282-362).
 
     Returns (outputs, new_history) where new_history is a tuple of arrays
@@ -449,7 +437,7 @@ def vr_aggregate(inputs, ls: LayerSample, field_in: jax.Array,
         z = h - mu
         delta_mu = mu - mu_small
         mu_mean = _full_term(history, lazy_l, 0, graph, field_out,
-                             use_pallas=use_pallas, mesh=mesh)
+                             mesh=mesh)
         mu_neighbour = fanout_gather(delta_mu, ls.slot_pos, ls.slot_w,
                                      mesh) + mu_mean
         h_neighbour = fanout_gather(z, ls.slot_pos, ls.slot_w, mesh) \
@@ -478,13 +466,12 @@ def vr_aggregate(inputs, ls: LayerSample, field_in: jax.Array,
 
         mu_neighbour = fanout_gather(delta_mu, ls.slot_pos, ls.slot_w,
                                      mesh) \
-            + _full_term(history, lazy_l, 0, graph, field_out,
-                         use_pallas=use_pallas, mesh=mesh)
+            + _full_term(history, lazy_l, 0, graph, field_out, mesh=mesh)
         var_neighbour = (
             fanout_gather(jnp.square(delta_sigma), ls.slot_pos,
                           jnp.square(ls.slot_w), mesh)
             + _full_term(history, lazy_l, 1, graph, field_out,
-                         square=True, use_pallas=use_pallas, mesh=mesh)
+                         square=True, mesh=mesh)
             + 2.0 * fanout_gather(msigma, ls.slot_pos, ls.slot_aw, mesh))
         var_neighbour = jax.nn.relu(var_neighbour) + 1e-10
 
@@ -504,8 +491,7 @@ def vr_aggregate(inputs, ls: LayerSample, field_in: jax.Array,
     delta = inputs - history_gather(_anchor(history, lazy_l, 0),
                                     field_in, mesh, graph.num_nodes)
     a_neighbour = fanout_gather(delta, ls.slot_pos, ls.slot_w, mesh) \
-        + _full_term(history, lazy_l, 0, graph, field_out,
-                     use_pallas=use_pallas, mesh=mesh)
+        + _full_term(history, lazy_l, 0, graph, field_out, mesh=mesh)
     new_history = (inputs,)
     return (_self_concat(normalization, _self_rows(inputs, ls, mesh),
                          a_neighbour),

@@ -95,8 +95,6 @@ class ModelSpec:
     # (input_dim*output_dim, field index) per FC block — the FLOP
     # bookkeeping of gcn/models.py:299,336 (layer_comp)
     layer_comp: Tuple[Tuple[int, int], ...] = ()
-    # full-precision Pallas kernel for the CV full-neighborhood term
-    use_pallas: bool = False
 
 
 def build_model_spec(cfg: Config, input_dim: int, output_dim: int,
@@ -176,7 +174,7 @@ def build_model_spec(cfg: Config, input_dim: int, output_dim: int,
         det_dropout=cfg.det_dropout, normalization=cfg.normalization,
         multitask=cfg.multitask, history_dims=hist_dims,
         n_history_per_layer=2 if cfg.det_dropout else 1,
-        layer_comp=tuple(layer_comp), use_pallas=cfg.use_pallas)
+        layer_comp=tuple(layer_comp))
 
 
 # ----------------------------- parameters ---------------------------------
@@ -333,8 +331,7 @@ def forward(params: dict, spec: ModelSpec, pack: BatchFields,
             if spec.cv:
                 h, nh = agg.vr_aggregate(
                     h, ls, pack.fields[l], pack.fields[l + 1], graph,
-                    histories[l], spec.cvd, spec.normalization,
-                    use_pallas=spec.use_pallas, mesh=mesh,
+                    histories[l], spec.cvd, spec.normalization, mesh=mesh,
                     lazy_l=None if lazy is None
                     else (lazy[0][l], lazy[1][l]))
                 new_histories[l] = nh

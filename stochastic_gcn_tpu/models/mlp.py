@@ -1,6 +1,6 @@
 """NeighbourMLP baseline: an MLP over precomputed multi-hop features.
 
-Working TPU re-design of the reference's (stale, unrunnable) gcn/mlp.py:
+Working re-design of the reference's (stale, unrunnable) gcn/mlp.py:
 features are ``hstack(X, ÂX, Â²X, ..., Â^num_layers X)`` built once at setup
 (mlp.py:35-44), then a ``num_fc_layers``-deep MLP with dropout before each
 dense layer (mlp.py:72-97).  No graph sampling at train time — the batch

@@ -1,6 +1,6 @@
 """Functional layer library.
 
-TPU-native (pure-function, explicit-params) re-design of the reference's
+Pure-function, explicit-params re-design of the reference's
 Keras-style layer objects (gcn/layers.py).  Every layer is a function
 ``(params, inputs, ...) -> outputs``; parameters live in plain pytrees created
 by the matching ``init_*`` functions.  Numerics follow the reference

@@ -5,8 +5,8 @@ no distribution of any kind).  This framework's sharded step already runs
 unchanged under multi-controller JAX — `make_mesh` builds the host-major
 ('data'[, 'model']) mesh from the globally-enumerated device list, every
 O(N) table is row-sharded so each host owns a contiguous node block, and
-the halo exchanges cross DCN only for remote-host rows.  This module adds
-the process bootstrap:
+the halo exchanges cross the host network only for remote-host rows.
+This module adds the process bootstrap:
 
 * :func:`maybe_initialize` — call `jax.distributed.initialize` from the
   CLI flags (`--coordinator host:port --num_processes P --process_id i`),
@@ -27,15 +27,31 @@ from __future__ import annotations
 import jax
 
 
+def local_device_ids(process_id: int, num_processes: int, hosts: int):
+    """The GPU ids this process opens: with several processes on one host
+    (``num_processes / hosts`` of them, host-major process ids), process
+    ``i`` takes card ``i`` modulo that count; with one process per host,
+    None (every local card).  A JAX process reserves most of a card's
+    memory when it first opens it, so two processes that both opened
+    every card would fail for want of memory."""
+    per_host = max(1, num_processes // max(1, hosts))
+    if per_host == 1:
+        return None
+    return [process_id % per_host]
+
+
 def maybe_initialize(cfg) -> int:
     """Initialize multi-controller JAX when --coordinator is set; returns
-    this process's index (0 when single-process)."""
+    this process's index (0 when single-process).  ``--dp_hosts`` says
+    how many hosts the processes span (see :func:`local_device_ids`)."""
     if not getattr(cfg, "coordinator", ""):
         return 0
     jax.distributed.initialize(
         coordinator_address=cfg.coordinator,
         num_processes=cfg.num_processes,
-        process_id=cfg.process_id)
+        process_id=cfg.process_id,
+        local_device_ids=local_device_ids(cfg.process_id, cfg.num_processes,
+                                          cfg.dp_hosts))
     return jax.process_index()
 
 

@@ -8,15 +8,16 @@ reference is single-GPU with everything replicated in one process,
 gcn/utils.py:164-165).
 
 Row accesses by global node id then need communication.  GSPMD's default
-lowering ALL-GATHERS the whole table per access (O(N·d) ICI bytes per
-step); every helper here instead routes rows explicitly from their owner
-chips so ICI traffic scales with the *request* count (the receptive-field
-size), never with N:
+lowering ALL-GATHERS the whole table per access (O(N·d) interconnect
+bytes per step); every helper here instead routes rows explicitly from
+their owner chips so interconnect traffic scales with the *request* count
+(the receptive-field size), never with N:
 
 * gathers — FETCH-routed by default (:func:`row_gather`): each chip reads
-  the rows it owns locally (zero ICI) and requests only the spill rows
-  from their owners over a capacity-bounded ``all_to_all`` round trip (ids
-  out, rows back, native dtype).  Per-chip ICI bytes ≈ 2·spill·d — under
+  the rows it owns locally (no interconnect traffic) and requests only the
+  spill rows from their owners over a capacity-bounded ``all_to_all``
+  round trip (ids out, rows back, native dtype).  Per-chip interconnect
+  bytes ≈ 2·spill·d — under
   owner-aligned batching (``cfg.owner_batching``, ~97-100% self-locality)
   that is near zero, and even for fully shuffled requests it is
   ~4·F/P·d, a further ~P/4× below the previous psum lowering.  If the
@@ -31,9 +32,9 @@ size), never with N:
   CONTRACTION (:func:`owner_routed` with a reducing ``partial_fn``),
   where the sum over owner chips is the semantics, not transport.
 * scatters — each chip sorts its update rows by owner chip and sends them
-  point-to-point over ICI (``all_to_all``), ~P× fewer bytes than the
-  all-gather-then-mask lowering.  The per-destination capacity is bounded
-  statically; overflowing rows are counted and *dropped*, which for the CV
+  point-to-point over the interconnect (``all_to_all``), ~P× fewer bytes
+  than the all-gather-then-mask lowering.  The per-destination capacity
+  is bounded statically; overflowing rows are counted and *dropped*, which for the CV
   history buffers is principled: a dropped update leaves a one-step-staler
   history row, and staleness tolerance is the control-variate estimator's
   defining property (the paper's whole point).  The drop count is surfaced
@@ -112,7 +113,7 @@ def owner_routed(table: jax.Array, ids: jax.Array, extras, partial_fn, mesh):
     ``partial_fn(rows, mine, *extras) -> [P, F/P, ...]`` over the rows it
     owns (non-owned rows are garbage and must be masked via ``mine``), and
     one ``psum_scatter`` sums the partials while handing every chip its own
-    shard — ICI payload ≈ the result size, independent of N.
+    shard — interconnect payload ≈ the result size, independent of N.
     """
     mesh, _ = _unwrap(mesh)
     axis = mesh.axis_names[0]
@@ -144,8 +145,8 @@ def _fetch_or_psum_gather(table: jax.Array, ids: jax.Array,
     """``table[ids]`` over a row-sharded table: fetch-routed transport with
     an in-graph exact psum fallback.
 
-    Each chip serves its OWN rows with a plain local gather (no ICI);
-    spill rows are sorted by owner, bucketed into a static ``[P, cap]``
+    Each chip serves its OWN rows with a plain local gather (no
+    interconnect traffic); spill rows are sorted by owner, bucketed into a static ``[P, cap]``
     request, and fetched over two ``all_to_all`` hops (int32 ids out,
     native-dtype rows back).  The capacity follows
     :func:`scatter_capacity`; a replicated overflow count (one scalar
@@ -283,7 +284,7 @@ def row_gather2(table_i: jax.Array, table_f: jax.Array, ids: jax.Array,
     ``idx``/``val``) in ONE exchange: the int table is value-cast to
     float32 (exact — node ids < 2^24; a BITCAST would be wrong here, as
     ids < 2^23 bitcast to f32 denormals that the psum fallback's additions
-    flush to zero on TPU), stacked with the float table, and the pair
+    may flush to zero), stacked with the float table, and the pair
     rides a single fetch-routed gather."""
     if not halo_tiles(table_i, ids, mesh):
         out_i = jnp.take(table_i, ids, axis=0)
@@ -342,11 +343,11 @@ def row_scatter(table: jax.Array, ids: jax.Array, rows: jax.Array,
     (training/step.py); compacted fields keep the scatter deterministic.
 
     Fast path: updates whose target row is OWNED BY THIS CHIP are applied
-    with a plain local scatter (no ICI, no capacity) — under owner-grouped
-    batching (``cfg.owner_batching``) that is most of them.  The remainder
+    with a plain local scatter (no interconnect traffic, no capacity) —
+    under owner-grouped batching (``cfg.owner_batching``) that is most of them.  The remainder
     are sorted by owner chip and sent point-to-point (``all_to_all`` of
-    [P, cap, d] buckets) — per-chip ICI bytes ≈ C·d·cap_mult/P vs the C·d
-    of GSPMD's all-gather lowering, and the capacity budget is spent on
+    [P, cap, d] buckets) — per-chip interconnect bytes ≈ C·d·cap_mult/P
+    vs the C·d of GSPMD's all-gather lowering, and the capacity budget is spent on
     remote rows only.
     """
     if not halo_tiles(table, ids, mesh) \

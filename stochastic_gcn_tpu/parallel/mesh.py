@@ -1,11 +1,11 @@
 """Device-mesh utilities and sharded training-step construction.
 
 The reference has NO multi-device support of any kind (single tf.Session,
-single GPU — SURVEY.md §2.3).  This module is the scale-out layer the TPU
+single GPU — SURVEY.md §2.3).  This module is the scale-out layer this
 design adds: a 1-D ``('data',)`` mesh where the minibatch (and hence each
-layer's receptive field work) is sharded across chips, parameters/graph/
+layer's receptive field work) is sharded across devices, parameters/graph/
 history are replicated, and XLA's SPMD partitioner inserts the gradient
-all-reduce and the history-update all-gathers over ICI.
+all-reduce and the history-update all-gathers (NCCL collectives on GPUs).
 
 With ``shard_history`` the [N, d] history buffers are sharded along the
 node dimension (each chip owns N/P rows), and ``cfg.halo_exchange`` routes
@@ -30,10 +30,10 @@ def make_mesh(n_devices: Optional[int] = None,
               tp: int = 1) -> Mesh:
     """('data',) mesh over the first ``n_devices`` devices, or a 2-D
     ('data', 'model') mesh when ``tp > 1`` (``n_devices`` then counts the
-    data axis; total chips = n_devices * tp).  The model axis is innermost
-    (adjacent chips) so tensor-parallel collectives ride the shortest ICI
-    hops; every halo helper keys off the FIRST axis and leaves 'model'
-    auto (parallel/halo.py::data_axis_size).
+    data axis; total chips = n_devices * tp).  The model axis is innermost;
+    every halo helper keys off the FIRST axis and leaves 'model' auto
+    (parallel/halo.py::data_axis_size).  The cards of one host reach each
+    other all to all, so device order within a host does not matter.
 
     ``hosts`` declares a (hosts, n_devices/hosts) grid flattened
     HOST-MAJOR: all chips of host 0 first, then host 1, ... — the order
@@ -42,8 +42,8 @@ def make_mesh(n_devices: Optional[int] = None,
     single logical 'data' axis, but because row-sharding assigns
     contiguous node blocks along the axis, host-major order means each
     host owns a contiguous N/H slice and the halo exchanges
-    (parallel/halo.py) cross DCN only for rows owned by other hosts while
-    intra-host routing rides ICI.  On a single process this validates the
+    (parallel/halo.py) cross the host network only for rows owned by
+    other hosts.  On a single process this validates the
     shape and documents the layout; under multi-controller JAX the same
     code runs unchanged.
     """
@@ -110,8 +110,8 @@ def data_shardings(mesh: Mesh, data, shard_graph: bool):
     labels).  With ``shard_graph`` every table whose row count tiles over
     the mesh is sharded along the node dimension — [N, Dcap] graph rows,
     [N, d] features (dense or PaddedSparseFeatures idx/val), [N, C] labels
-    — so per-chip HBM scales as N/P for every O(N) table; row accesses are
-    owner-routed (parallel/halo.py).  Small [N] vectors (degrees, block
+    — so per-device memory scales as N/P for every O(N) table; row
+    accesses are owner-routed (parallel/halo.py).  Small [N] vectors (degrees, block
     starts) stay replicated by design.  :class:`FlatGraph` block tables
     shard into their per-chip tiles when built with ``parts == P``
     (flat_csr(..., parts)); otherwise they replicate — their [NB, B] rows
@@ -339,8 +339,8 @@ def make_sharded_pred_and_grad(cfg, spec, degrees: Tuple[int, ...],
                                data_template=None,
                                shard_graph: bool = False,
                                params_template=None):
-    """Sharded get_pred_and_grad for the gradient-variance harness
-    (VERDICT r4 #6): the estimator-bias instrument runs through the SAME
+    """Sharded get_pred_and_grad for the gradient-variance harness:
+    the estimator-bias instrument runs through the SAME
     dp lowering as training (node-sharded tables, halo gathers,
     owner-aligned fields) instead of the single-device step.  Histories
     are read-only here (no scatter, no donation); predictions and the

@@ -1,6 +1,6 @@
 """On-device receptive-field scheduler.
 
-TPU-native re-design of the reference's host-side C++ scheduler
+Device-side re-design of the reference's host-side C++ scheduler
 (gcn/scheduler.cpp, driven by gcn/_scheduler.pyx).  Instead of walking CSR
 rows on the CPU and feed-dict'ing variable-size COO adjacencies to the device
 every step, the whole layer-by-layer receptive-field expansion runs inside the
@@ -26,7 +26,7 @@ jitted training step over the device-resident :class:`PaddedGraph`:
   padded edges carry weight 0.
 
 Unlike the reference there is no ``ffield``/``ifield`` indirection: history is
-addressed directly by node id ([N+1, d] resident in HBM), so the CV
+addressed directly by node id ([N+1, d] resident on the device), so the CV
 full-neighborhood term reads graph rows + history rows with plain gathers.
 """
 
@@ -141,10 +141,10 @@ def effective_dedup(dedup: bool, batch_size: int, degrees: Sequence[int],
     instead (Exact mode at Reddit scale would need millions of field
     rows, where the clamp caps them at N).  Below the threshold the
     layouts' capacity difference is at most 2x and the append layout's
-    skipped compaction passes win (PERF.md).
+    skipped compaction passes win.
 
-    A plain (non-owner-aligned) mesh no longer forces dedup (round 4,
-    VERDICT r3 item 7): the owner-routed transports handle duplicate
+    A plain (non-owner-aligned) mesh no longer forces dedup the
+    owner-routed transports handle duplicate
     field rows mechanically — fetch gathers repeat the row per request
     slot, the history scatter races duplicates to the documented
     last-write semantics (training/step.py), and AD accumulates duplicate
@@ -226,12 +226,10 @@ def importance_row_table(graph, importance: jax.Array):
     """[N+1, Dcap] table of ``importance[graph.nbr]`` — the per-epoch hoist
     of the IS path's per-slot importance lookup.  Inside the step the
     lookup is then F row-window gathers instead of F·Dcap scalar-issue
-    element gathers.  Measured end-to-end on TPU v5 lite: -0.36 ms/step at
-    batch 4096, +0.14 ms at batch 512 vs the PRE-FUSION flow — since
-    superseded by the fused is_slots packed gather (the default path;
-    PERF.md "IS at Reddit scale"), so --is_row_table survives as the
-    legacy comparison arm (scripts/profile_is_fused.py).  Costs one
-    transient [N, Dcap] f32 for the epoch (+50% of the padded graph's HBM).
+    element gathers.  Superseded by the fused is_slots packed gather (the
+    default path), so --is_row_table survives as the legacy comparison
+    arm.  Costs one transient [N, Dcap] f32 for the epoch (+50% of the
+    padded graph's memory).
     Padded-graph layout only (the edgelist path has no slot table)."""
     if not isinstance(graph, PaddedGraph):
         return None
@@ -251,9 +249,8 @@ class ISSelection(NamedTuple):
 
 
 def is_select(key: jax.Array, graph: PaddedGraph, field_out: jax.Array,
-              degree: int, importance: jax.Array, mesh=None,
-              approx_topk: bool = True,
-              recall_target: float = 0.95) -> ISSelection:
+              degree: int, importance: jax.Array,
+              mesh=None) -> ISSelection:
     """Selection half of importance sampling (scheduler.cpp:63-122): gather
     the field's neighbor rows, form the union, draw ``n = min(|field|*degree,
     |union|)`` members without replacement via Gumbel top-k.  Slot weights /
@@ -275,12 +272,7 @@ def is_select(key: jax.Array, graph: PaddedGraph, field_out: jax.Array,
 
     g = jax.random.gumbel(key, (n + 1,))
     score = jnp.where(union, jnp.log(importance) + g, -jnp.inf)
-    if approx_topk:
-        _, top_ids = jax.lax.approx_max_k(score, n_cap,
-                                          recall_target=recall_target)
-        top_ids = top_ids.astype(jnp.int32)
-    else:
-        _, top_ids = jax.lax.top_k(score, n_cap)
+    _, top_ids = jax.lax.top_k(score, n_cap)
     rank_ok = jnp.arange(n_cap) < n_samples
     sel_ids = jnp.where(rank_ok & union[top_ids], top_ids, n)
     selected = jnp.zeros(n + 1, bool).at[sel_ids].set(True).at[n].set(False)
@@ -293,10 +285,8 @@ def is_slots(sel: ISSelection, importance: jax.Array,
     """Fused IS slot computation: ONE [F, Dcap] row gather of a packed
     [N+1, 2] table replaces THREE element gathers of the legacy path
     (``selected[rows_nbr]`` membership test, ``importance[rows_nbr]``
-    inverse weights, ``pos_table[nbr_id]`` positions).  The TPU gather path
-    is row-ISSUE-rate bound, not byte bound (PERF.md finding #5), so a
-    2-wide row costs the same issues as a scalar — the fusion cuts the IS
-    schedule's dominant cost ~3x.
+    inverse weights, ``pos_table[nbr_id]`` positions): one gather issued
+    per slot instead of three.
 
     Column 0 holds the full slot-weight multiplier
     ``total_imp / (importance_v * n_samples)`` for selected nodes (0
@@ -328,8 +318,6 @@ def is_slots(sel: ISSelection, importance: jax.Array,
 def expand_importance(key: jax.Array, graph: PaddedGraph,
                       field_out: jax.Array, degree: int,
                       importance: jax.Array, mesh=None,
-                      approx_topk: bool = True,
-                      recall_target: float = 0.95,
                       importance_rows: Optional[jax.Array] = None):
     """Importance sampling over the neighbor union (scheduler.cpp:63-122).
 
@@ -340,27 +328,12 @@ def expand_importance(key: jax.Array, graph: PaddedGraph,
     Returns slots in [F, Dcap] masked form plus the selected-id list used for
     field compaction.
 
-    ``approx_topk`` (default) selects the Gumbel top-k via the TPU-native
-    ``jax.lax.approx_max_k`` instead of an exact N-sized sort.  Measured on
-    TPU v5e at Reddit scale (scripts/profile_sched.py): the top-k itself is
-    2.7x cheaper (0.584 -> 0.217 ms at k=512 over 233k scores) and the
-    whole IS schedule drops 1.51 -> 1.25 ms at batch 512 (9.0 -> 8.8 at
-    4096 where other IS costs dominate).  Sampling semantics: each node's
-    inclusion is decided by its own Gumbel race exactly as before; with
-    probability ~(1 - recall_target) per slot the k-th ranked candidates
-    near the selection boundary swap for slightly lower-scored ones —
-    itself an unbiased perturbation of the race among the boundary
-    candidates, and the IS weights are computed from the ACTUAL selected
-    set either way.  Estimator acceptance at the default recall is covered
-    by the replica validation (ISPP within band).
-
     This is the LEGACY per-slot-gather slot computation; production
     ``schedule()`` uses :func:`is_select` + :func:`is_slots` (one fused
     gather) unless an ``importance_rows`` table is supplied."""
     n = graph.num_nodes
     f = field_out.shape[0]
-    sel = is_select(key, graph, field_out, degree, importance, mesh=mesh,
-                    approx_topk=approx_topk, recall_target=recall_target)
+    sel = is_select(key, graph, field_out, degree, importance, mesh=mesh)
 
     tgt_sel = sel.selected[sel.rows_nbr] & sel.valid
     if importance_rows is not None:
@@ -385,9 +358,8 @@ def is_slot_compact(slot_pos: jax.Array, slot_w: jax.Array, cap: int):
     The reference keeps EVERY graph edge into a selected union member
     (scheduler.cpp:118-121), which in slot form means the whole [F, Dcap]
     row participates in the downstream fanout gather — [F·Dcap] activation
-    row-issues where uniform degree-1 sampling issues [F·1] (the dominant
-    IS cost at scale, PERF.md "IS at Reddit scale": ~2.9x the NS step at
-    batch 4096, all scalar-issue-rate bound).  With n ≈ F·degree selected
+    rows where uniform degree-1 sampling gathers [F·1] (the dominant IS
+    cost at scale).  With n ≈ F·degree selected
     nodes out of a much larger union, the EXPECTED selected slots per row
     is ~Dcap·n/|union| (< 2 at the Reddit recipe), so a small static cap
     covers almost every row; rows with more selected slots than ``cap``
@@ -419,13 +391,11 @@ def compact_field(field_out: jax.Array, new_ids: jax.Array, num_nodes: int,
     the field — only ever dereferenced under weight-0 masks).
 
     Design note: the O(N) tables here (cumsum + masks over 233k nodes on
-    the bench graph) are DELIBERATE and measured faster on TPU than a
-    candidate-sized sort/searchsorted rewrite (scripts/profile_sched.py:
-    schedule-only 0.28 vs 0.56 ms at batch 512, 1.32 vs 1.93 at 4096; the
-    IS path with its [F, Dcap] position queries regressed 1.5 -> 7.4 ms).
-    Wide elementwise/cumsum passes are bandwidth-trivial single kernels,
-    while a chain of small sorts + binary searches is latency-bound at
-    ~0.15 ms per dependent op inside a scan.
+    the bench graph) are DELIBERATE, chosen over a candidate-sized
+    sort/searchsorted rewrite: wide elementwise/cumsum passes are
+    bandwidth-trivial single kernels, while a chain of small sorts +
+    binary searches is latency-bound, one dependent op after another
+    inside a scan.
     """
     n = num_nodes
     f = field_out.shape[0]
@@ -444,9 +414,7 @@ def compact_field(field_out: jax.Array, new_ids: jax.Array, num_nodes: int,
     # v has rank cum[v]-1 among new ids, so scatter each new candidate to
     # its rank slot (duplicates carry identical values; min is a safe
     # dedup).  ~3 candidate-sized ops instead of a binary search whose
-    # log2(N) ≈ 18 dependent element gathers PER RANK are issue-bound
-    # (~18·F lookups; the old searchsorted was ~0.5 ms at batch 4096).
-    # An N-sized scatter remains off the table (serial lowering on TPU).
+    # log2(N) ≈ 18 dependent element gathers PER RANK (~18·F lookups).
     is_new = jnp.take(new_mask, cand)
     rank = jnp.take(cum, cand) - 1
     tgt = jnp.where(is_new, rank, capacity - f)          # OOB -> dropped
@@ -463,8 +431,7 @@ def append_field(field_out: jax.Array, new_ids: jax.Array, num_nodes: int,
     ``capacity``), every sampled slot owning its own position —
     ``slot_pos[f, j] = F + f*k + j`` is a trace-time iota, so the O(N)
     cumsum/mask compaction passes of :func:`compact_field` (the
-    scheduler's dominant cost, PERF.md roofline: ~45% of the headline
-    step at batch 4096) vanish from the step.
+    scheduler's dominant cost) vanish from the step.
 
     Duplicate node ids occupy multiple positions, each expanding its OWN
     neighbor sample (and dropout mask) in the layers below — independent
@@ -512,7 +479,7 @@ def compact_field_aligned(field_out: jax.Array, new_ids: jax.Array,
     ``LayerSample.self_pos`` instead of ``[:F_out]``.
 
     Cost: 3 O(N) cumsum/elementwise passes vs the classic 1 — wide O(N)
-    passes are bandwidth-trivial on TPU (see compact_field's design note).
+    passes are bandwidth-trivial (see compact_field's design note).
     """
     n = num_nodes
     p = owner_blocks
@@ -578,8 +545,6 @@ def schedule(key: jax.Array, graph: PaddedGraph, batch_ids: jax.Array,
              degrees: Sequence[int], cv: bool, need_aw: bool = False,
              importance: Optional[jax.Array] = None,
              round_multiple: int = 1, mesh=None,
-             is_approx_topk: bool = True,
-             is_recall_target: float = 0.95,
              owner_blocks: int = 0,
              importance_rows: Optional[jax.Array] = None,
              dedup: bool = True, is_slot_cap: int = 0) -> BatchFields:
@@ -610,9 +575,9 @@ def schedule(key: jax.Array, graph: PaddedGraph, batch_ids: jax.Array,
     if is_slot_cap < 0:
         # auto (cfg.is_slot_cap = -1): engage the cap only where it pays —
         # large batches, where the [F, Dcap] fanout gather dominates
-        # (PERF.md "IS at Reddit scale": 4.72x -> 3.58x vs NS at 4096,
-        # 0.004% slots dropped, replica bands green); small batches are
-        # latency-bound and the compaction would only add kernels.
+        # (0.004% slots dropped at batch 4096, replica bands green); small
+        # batches are latency-bound and the compaction would only add
+        # kernels.
         is_slot_cap = 8 if batch_ids.shape[0] >= 2048 else 0
     dedup = effective_dedup(dedup, batch_ids.shape[0], degrees, n,
                             graph.pad_degree,
@@ -637,16 +602,13 @@ def schedule(key: jax.Array, graph: PaddedGraph, batch_ids: jax.Array,
                 # --is_row_table hoist, which supplies its own row table)
                 nbr_id, slot_w, scales, sel_ids = expand_importance(
                     sub, graph, field, degree, importance, mesh=mesh,
-                    approx_topk=is_approx_topk,
-                    recall_target=is_recall_target,
                     importance_rows=importance_rows)
                 cand = sel_ids
             else:
                 # fused path: selection now, slots via ONE packed gather
                 # once the field position table exists (is_slots)
                 sel = is_select(sub, graph, field, degree, importance,
-                                mesh=mesh, approx_topk=is_approx_topk,
-                                recall_target=is_recall_target)
+                                mesh=mesh)
                 cand = sel.sel_ids
                 scales = jnp.ones((field.shape[0],), jnp.float32)
             slot_aw = None

@@ -61,11 +61,6 @@ def to_device_features(cfg: Config, feats, num_nodes: int):
 
 class Trainer:
     def __init__(self, cfg: Config, ds: Dataset):
-        if cfg.use_pallas and (cfg.dp > 1 or cfg.tp > 1):
-            # the halo-exchange lowering would silently take precedence
-            # over the Pallas full-precision kernel (and the kernel cannot
-            # read a row-sharded history) — refuse the combination
-            raise ValueError("--use_pallas is single-chip only (--dp 1)")
         if cfg.det_dropout and (cfg.importance or cfg.test_importance):
             # the IS path produces no cross-term (madj) weights — the
             # reference's importance sampler doesn't either
@@ -114,9 +109,6 @@ class Trainer:
         if cfg.graph_format == "edgelist":
             # flat-CSR layout: O(E) storage, per-batch edge enumeration for
             # the CV full-neighborhood term (power-law graphs)
-            if cfg.use_pallas:
-                raise ValueError("--use_pallas requires the padded graph "
-                                 "format")
             # node-shard the block tables over the data axis when a mesh
             # will be built (per-chip graph HBM ~O(E/P), window block
             # reads owner-routed — parallel/halo.py)
@@ -211,8 +203,8 @@ class Trainer:
                                   tp=cfg.tp)
             if cfg.shard_graph:
                 # row-pad every O(N) table so it tiles over the mesh, then
-                # shard it along the node dimension — per-chip HBM scales
-                # as N/P (VERDICT r1 missing #3); edgelist graphs stay
+                # shard it along the node dimension — per-device memory
+                # scales as N/P; edgelist graphs stay
                 # replicated (O(E)-compact, 1-D arrays)
                 if isinstance(self.graph_train, PaddedGraph):
                     self.graph_train = pad_graph_rows(self.graph_train,
@@ -269,7 +261,7 @@ class Trainer:
         drops (max over train/eval graphs; 0.0 for padded graphs, which
         are lossless).  Surfaced in bench/validation artifacts so a lossy
         CV full term is visible in the driver record, not only in the
-        flat_csr UserWarning (VERDICT r4 #8)."""
+        flat_csr UserWarning."""
         return max(getattr(self.graph_train, "truncated_frac", 0.0),
                    getattr(self.graph_full, "truncated_frac", 0.0))
 
@@ -476,7 +468,7 @@ class Trainer:
             self._sgd_epoch_loop(cfg, start_epoch, max_epochs, log)
         finally:
             # once training has left the loop, SIGTERM should kill the
-            # process again (ADVICE r4: a forever-installed flag-setter
+            # process again (a forever-installed flag-setter
             # silently swallows signals after the first stop)
             self._restore_preemption_handlers()
         log("Optimization Finished!")
@@ -614,7 +606,7 @@ class Trainer:
         if self.mesh is not None:
             # run the instrument through the SHARDED lowering — the same
             # node-sharded tables / halo transports / owner-aligned
-            # fields as dp training (VERDICT r4 #6)
+            # fields as dp training
             from ..parallel.mesh import make_sharded_pred_and_grad
             eval_data = (self.graph_full, self.test_features, self.labels)
             train_data = (self.graph_train, self.train_features,
@@ -673,8 +665,9 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def save(self):
-        # multi-controller: sharded leaves are gathered over DCN inside
-        # save_checkpoint; process 0 writes (shared filesystem assumed).
+        # multi-controller: sharded leaves are gathered over the host
+        # network inside save_checkpoint; process 0 writes (shared
+        # filesystem assumed).
         # Loop counters ride along for --resume; plain --load ignores them.
         extra = {"completed_epochs": np.int64(self.completed_epochs),
                  "amt_data": np.int64(self.amt_data),
@@ -701,7 +694,7 @@ class Trainer:
             self._async_ckpt.wait()
 
     def install_preemption_handler(self, signals=None):
-        """Route SIGTERM (the eviction notice TPU pods / cluster managers
+        """Route SIGTERM (the eviction notice cluster managers
         send before reclaiming a worker) to a graceful stop: the epoch in
         flight finishes, the loop exits at the boundary, and sgd_train's
         final save writes the --resume counters — so a preempted job loses

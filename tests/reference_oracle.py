@@ -1,7 +1,6 @@
 """Run the REFERENCE's own data loaders as a golden oracle.
 
-VERDICT round 1, missing #1: nothing was ever validated against the
-reference's pipeline.  Real dataset files are unobtainable here (no
+Validation against the reference's own pipeline.  Real dataset files are unobtainable here (no
 network), so validation runs the reference's loader code — which is pure
 numpy/scipy/networkx, no TF compute (gcn/utils.py:33-335) — on replica
 fixture files (stochastic_gcn_tpu/data/fixtures.py) and compares its

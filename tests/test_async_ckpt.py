@@ -1,6 +1,6 @@
 """Async (double-buffered) checkpointing: save() snapshots on device and
 writes in the background; writes are atomic; the final save is durable
-before sgd_train returns (VERDICT r4 #5 — the reference has only an
+before sgd_train returns (the reference has only an
 end-of-training tf.train.Saver, gcn/models.py:204-220)."""
 
 import os

@@ -56,3 +56,31 @@ def test_device_f1_batched_accumulation():
                                    np.vstack(all_labels), False)
     np.testing.assert_allclose(micro, ref_micro, atol=1e-9)
     np.testing.assert_allclose(macro, ref_macro, atol=1e-9)
+
+
+@pytest.mark.parametrize("multitask", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_calc_f1_matches_sklearn(multitask, seed):
+    """The NumPy calc_f1 reproduces sklearn's f1_score (what the
+    reference calls), including classes absent from both sides."""
+    metrics = pytest.importorskip("sklearn.metrics")
+    rng = np.random.default_rng(seed)
+    n, c = 150, 9
+    if multitask:
+        labels = (rng.random((n, c)) < 0.3).astype(np.float32)
+        labels[:, -1] = 0.0                    # a never-positive column
+        probs = rng.random((n, c)).astype(np.float32)
+        y_true, y_pred = labels, (probs > 0.5).astype(np.float32)
+    else:
+        labels = np.zeros((n, c), np.float32)
+        labels[np.arange(n), rng.integers(0, c - 2, n)] = 1  # 2 absent
+        probs = rng.normal(size=(n, c)).astype(np.float32)
+        probs[:, -1] = -10.0                   # never predicted either
+        y_true, y_pred = labels.argmax(1), probs.argmax(1)
+    micro, macro = calc_f1(probs, labels, multitask)
+    np.testing.assert_allclose(
+        micro, metrics.f1_score(y_true, y_pred, average="micro"),
+        atol=1e-12)
+    np.testing.assert_allclose(
+        macro, metrics.f1_score(y_true, y_pred, average="macro",
+                                zero_division=0), atol=1e-12)

@@ -1,7 +1,7 @@
 """No-dedup field layout (--nofield_dedup, cfg.field_dedup): append-only
 receptive fields whose slot positions are a trace-time iota, removing the
-scheduler's O(N) compaction passes (the dominant non-gather cost at large
-batch, PERF.md roofline).  Duplicate field positions expand independent
+scheduler's O(N) compaction passes (the dominant non-gather cost of the
+scheduler at large batch).  Duplicate field positions expand independent
 neighbor samples — iid estimates of the same activation — so every
 estimator property survives; these tests pin the layout contract, the
 equal-first-expansion guarantee, the forced-dedup fallbacks, and the

@@ -368,3 +368,22 @@ def test_mlp_baseline(tmp_path):
         tr.train_epoch()
         accs.append(tr.evaluate(ds.val_d)[1])
     assert max(accs) > 0.4  # learns above chance (1/3)
+
+
+@pytest.mark.parametrize("constant_col", [False, True])
+def test_standardize_matches_sklearn_standard_scaler(constant_col):
+    """preprocess.standardize reproduces scikit-learn's StandardScaler
+    fit on the training rows (the reference's GraphSAGE normalisation),
+    including a column that is constant over those rows."""
+    preprocessing = pytest.importorskip("sklearn.preprocessing")
+    from stochastic_gcn_tpu.data.preprocess import standardize
+    rng = np.random.default_rng(3)
+    x = (rng.normal(size=(60, 7)) * rng.random(7) * 5 + 2).astype(
+        np.float32)
+    rows = np.sort(rng.choice(60, 40, replace=False))
+    if constant_col:
+        x[rows, 2] = 3.25
+    ref = preprocessing.StandardScaler().fit(x[rows]).transform(x)
+    got = standardize(x, rows)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)

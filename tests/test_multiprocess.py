@@ -1,7 +1,7 @@
 """REAL multi-controller validation: two OS processes, each owning 4
 virtual CPU devices, form one dp=8 / dp_hosts=2 mesh over localhost
 (jax.distributed) and train the sharded CV+PP model — the exact code path
-a 2-host TPU pod slice would run (SURVEY.md §2.3 scale-out; the reference
+a 2-host launch would run (SURVEY.md §2.3 scale-out; the reference
 is single-process only).  Asserts both controllers agree and that the
 2-process trajectory matches the single-process 8-device mesh run."""
 import json

@@ -640,7 +640,7 @@ def test_trainer_dp_edgelist_importance_matches_padded(setup):
 
 
 def test_sharded_nodedup_matches_replicated(setup):
-    """Round 4 (VERDICT r3 item 7): a plain mesh no longer forces field
+    """A plain mesh no longer forces field
     dedup — the no-dedup (append-only) layout rides the owner-routed
     transports, with duplicate rows racing to the documented last-write
     scatter semantics.  Same-key sharded vs replicated steps must agree
@@ -768,7 +768,7 @@ def test_sentinel_gather_exact_under_psum_fallback():
 
 
 def test_sharded_pred_and_grad_exact_parity(setup):
-    """The gradvar instrument's sharded lowering (VERDICT r4 #6): with
+    """The gradvar instrument's sharded lowering: with
     exact eval (covering degree) and dropout off, predictions AND the
     first-layer gradient from the dp8 sharded pred_and_grad equal the
     single-device ones — the sampled layout may differ, but the exact

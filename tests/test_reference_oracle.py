@@ -5,8 +5,7 @@ the exact on-disk formats of the real datasets; the reference's utils.py is
 exec'd (see reference_oracle.py) and both pipelines consume the SAME files.
 Every output tensor — normalized adjacencies, normalized/scaled features,
 PP features, labels, splits — must agree.  This is the bit-faithful
-replica-oracle path VERDICT round 1 (missing #1) prescribes in lieu of the
-real dataset files.
+replica-oracle path that stands in for the real dataset files.
 """
 
 import os

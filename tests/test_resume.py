@@ -178,7 +178,7 @@ def test_plain_load_ignores_extras(tmp_path, ds):
 
 def test_sigterm_handler_restored_after_sgd_train(tmp_path, ds):
     """sgd_train restores the pre-install signal disposition on exit
-    (ADVICE r4: a forever-installed flag-setter swallowed post-training
+    (a forever-installed flag-setter would swallow post-training
     SIGTERMs), including on the preemption-stop path."""
     import signal
 
@@ -203,7 +203,7 @@ def test_sigterm_handler_restored_after_sgd_train(tmp_path, ds):
 def test_cli_skips_tests_after_preemption_stop(tmp_path, ds, monkeypatch):
     """After a preemption stop the CLI exits without gradvar/run_tests —
     the eviction grace window is for checkpointing, not the
-    (num_layers+1)-pass test_cv evaluation (ADVICE r4)."""
+    (num_layers+1)-pass test_cv evaluation."""
     from stochastic_gcn_tpu.cli import train as cli_train
 
     calls = []
@@ -235,7 +235,7 @@ def test_cli_skips_tests_after_preemption_stop(tmp_path, ds, monkeypatch):
 
 
 def test_load_loop_extras_closes_file(tmp_path, ds):
-    """load_loop_extras must not leak the npz file handle (ADVICE r4)."""
+    """load_loop_extras must not leak the npz file handle."""
     import warnings
 
     tr = Trainer(_cfg(tmp_path), ds)

@@ -1,5 +1,5 @@
 """On-device scheduler tests: compaction, prefix invariant, sampling
-semantics, unbiasedness.  These are the TPU-native versions of the checks
+semantics, unbiasedness.  These are the on-device versions of the checks
 the reference makes by eyeballing gcn/test_scheduler.py output."""
 
 import numpy as np

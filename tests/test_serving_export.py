@@ -73,13 +73,13 @@ def test_export_serves_polyak_average(tmp_path):
 
 
 def test_multi_platform_export_serves_locally(tmp_path):
-    """platforms=("cpu","tpu") lowers for both fleets; the artifact must
+    """platforms=("cpu","cuda") lowers for both fleets; the artifact must
     still deserialize and serve on the current (cpu) backend."""
     tr = _trained(tmp_path, degree=1, test_degree=1, cv=True, test_cv=True)
     ids = np.asarray([1, 2, 3], np.int64)
     live = tr.predict(ids)
     art = export_predictor(tr, str(tmp_path / "art2"),
-                           platforms=("cpu", "tpu"))
+                           platforms=("cpu", "cuda"))
     got = load_predictor(art).predict(ids)
     np.testing.assert_allclose(got, live, rtol=1e-4, atol=1e-5)
 

@@ -1,4 +1,4 @@
-"""Round-2 hardening tests (VERDICT weak #6-8, ADVICE round 1).
+"""Hardening tests.
 
 1. eval metrics are invariant to test_batch_size (partial-batch masking).
 2. CV gradient variance is STRICTLY below NS after history convergence —
@@ -206,7 +206,7 @@ def test_nan_edge_weights_fail_loudly(tmp_path):
 
 
 def test_det_dropout_fc_finite_on_zero_rows():
-    """Round-4 regression (VERDICT r3 dryrun matrix): det_dropout_fc's
+    """Regression: det_dropout_fc's
     normed variance path divided by raw row variance, so an all-zero
     (sentinel padding) row produced 0 * inf = NaN — surfaced by the
     owner-aligned field layout, whose per-chip chunk padding feeds zero
@@ -229,7 +229,7 @@ def test_det_dropout_fc_finite_on_zero_rows():
 
 def test_is_slot_cap_auto_resolution():
     """--is_slot_cap -1 (auto, the default) resolves per batch shape:
-    8 at >= 2048 scheduled rows, 0 below (VERDICT r3 item 8)."""
+    8 at >= 2048 scheduled rows, 0 below."""
     from stochastic_gcn_tpu.data.graph import pad_csr
     from stochastic_gcn_tpu.sampler.scheduler import compute_importance, \
         schedule
@@ -251,7 +251,7 @@ def test_is_slot_cap_auto_resolution():
 
 
 def test_flat_csr_auto_budget_and_renorm():
-    """Round-4 (VERDICT r3 item 4): --fadj_edge_mult 0 (default) auto-sizes
+    """--fadj_edge_mult 0 (default) auto-sizes
     the edgelist full-term budget to cover >= 99.9% of edges, and truncated
     rows are renormalized so the full term preserves row mass (the
     reference's --max_degree semantics, gcn/utils.py:532-543)."""
